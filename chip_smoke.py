@@ -9,9 +9,11 @@ In order, printing one JSON line per finding:
 2. the build of the hand-written kernels from ``src/repro_torch/csrc``
    (wall time, cache hit, any register spills ptxas reports);
 3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (1000x1000 grid, n = 10^6, l = 3, float64 and float32;
-   ``fused_body`` with the in-kernel stencil and with a streamed t, warmup
-   and steady): max abs and relative error, launch-counter delta, median
+   paths' shapes (1000x1000 grid, n = 10^6, l = 3, float64 and float32;
+   ``fused_body`` in each of its seven operand modes, warmup and steady;
+   ``stencil2d`` on the window column the split path passes, with zero
+   halos, and on a contiguous block with random halos): max abs and
+   relative error, launch-counter delta, median
    kernel time (CUDA events, L2 flushed before each launch), the plain
    version's time, one PyTorch library call computing the same function
    where there is one (timed only, never used by the port), and the least
@@ -25,7 +27,15 @@ In order, printing one JSON line per finding:
    true relative residual from an independent numpy stencil, wall time,
    time per body and kernel launches, beside the JAX reference's result;
 5. a prepared ``Solver`` (fused, same configuration) answering three
-   requests b = A randn (numpy seeds 0, 1, 2).
+   requests b = A randn (numpy seeds 0, 1, 2);
+6. the preconditioned path at full width (paper Alg. 4; same problem, the
+   shifts from ``M.precond_spectrum``): ``jacobi(A)``, ``BlockJacobi``
+   and ``Chebyshev`` on ``fused`` -- one ``fused_body`` launch a body for
+   the diagonal one, ``stencil2d`` + ``fused_body`` for the others --
+   ``Chebyshev`` also on ``auto`` and ``None``, held against ``fused``;
+   then a prepared ``BlockJacobi`` ``Solver`` answering two requests.
+   Each phase-4/5 and phase-6 path is driven with the launch counters set
+   to 0 just before it and read just after.
 
 Then the ``{"kernels": [...]}`` summary line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -45,10 +55,29 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, NVIDIA data sheet
 #: peak rates outside the tensor cores (NVIDIA H100 SXM data sheet)
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 TOL = {"float64": 1e-12, "float32": 1e-5}
-#: the JAX reference's result on this problem (x64 CPU run of repro.core.solve)
-EXPECTED = {"iters": 1345, "true_rel": 6.39e-5}
+#: the JAX reference's result on this problem (x64 CPU runs of repro.core.solve):
+#: the update count, and the true relative residual of its None and "ref"
+#: tiers, which differ by summation order alone
+EXPECTED = {"iters": 1345, "true_rel": {"jax_backend_None": 6.39e-5, "jax_backend_ref": 9.94e-6}}
+#: the same for the preconditioned path (backend None): updates, true
+#: relative residual and the shifts the engine chose from M.precond_spectrum.
+#: BlockJacobi's count is not a gate: it is a roundoff branch of the
+#: reference itself, whose backend None breaks down near the tolerance and
+#: restarts twice in its 539 updates on b = A 1, takes 431 updates and one
+#: restart on b perturbed by 2e-16 relative, and whose "ref" tier takes 683
+#: and two restarts (ROADMAP C; tests/prec_branches.py).  The port is held to the reference's spread of
+#: outcomes instead: converged, at most BLOCKJACOBI_MAX_RESTARTS restarts
+#: and the residual gate
+EXPECTED_PREC = {
+    "jacobi": {"iters": 1345, "true_rel": 6.39e-5, "sigma": [1.866, 1.0, 0.134]},
+    "blockjacobi": {"iters": 539, "restarts": 2, "true_rel": 8.58e-6,
+                    "sigma": [1.2195, 0.6535, 0.0876]},
+    "chebyshev": {"iters": 482, "true_rel": 9.12e-6, "sigma": [1.3181, 0.7064, 0.0946]},
+}
+BLOCKJACOBI_MAX_RESTARTS = 2
 REPLACES = {"fused_body": "src/repro/kernels/fused_body.py:169",
             "multidot": "src/repro/kernels/multidot.py:44",
+            "stencil2d": "src/repro/kernels/stencil2d.py:48",
             "window_axpy": "src/repro/kernels/window_axpy.py:32"}
 
 
@@ -80,8 +109,9 @@ def numpy_poisson_residual(x, nx, ny):
 
 class Timer:
     """Median time of one call in ms, by CUDA events, with the 50 MB L2
-    flushed before every launch (a 512 MB write also covers the host's
-    launch overhead, so the events bracket device work only)."""
+    flushed before every launch.  A spin of about 2 ms on the device goes
+    ahead of the flush, so the host has issued the whole call before the
+    device reaches it and the events bracket device work only."""
 
     def __init__(self, torch, reps: int = 15):
         self.torch = torch
@@ -93,6 +123,9 @@ class Timer:
         fn()
         times = []
         for _ in range(self.reps):
+            # torch.cuda._sleep is a private PyTorch API (a device spin of a
+            # number of clock cycles): ~2 ms at 1.98 GHz
+            torch.cuda._sleep(4_000_000)
             self.flush.zero_()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -106,6 +139,7 @@ class Timer:
 def kernel_checks(torch, timer, n_side: int, l: int):
     """Phase 3: every kernel against its plain version at the main path's shapes."""
     from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels.ref import FUSED_BODY_MODES
 
     n = n_side * n_side
     rows = []
@@ -117,22 +151,51 @@ def kernel_checks(torch, timer, n_side: int, l: int):
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
-        Vw, Zw, t, g = randn(n, 2 * l + 1), randn(n, l + 1), randn(n), randn(2 * l)
+        Vw, Zw, Zhw, g = randn(n, 2 * l + 1), randn(n, l + 1), randn(n, 3), randn(2 * l)
+        t, t_hat = randn(n), randn(n)
+        invd_vec = 0.25 + 0.01 * randn(n)
         sc = {k: torch.tensor(v, dtype=dtype, device="cuda")
               for k, v in dict(s_warm=0.7, gam=1.3, dlt=0.9, dsub=0.4, gcc=1.1).items()}
         cases = []
-        for stencil in (True, False):
+        for mode, (stencil, zh, diag) in FUSED_BODY_MODES.items():
+            streams_t = not stencil and diag == "none"
+            ops_in = (Zhw if zh else None, t if streams_t else None,
+                      t_hat if zh and not stencil else None)
+            invd = {"none": None, "scalar": torch.tensor(0.25, dtype=dtype, device="cuda"),
+                    "vector": invd_vec}[diag]
+            # words moved: the windows in and out, and every streamed operand once
+            words = (2 * (3 * l + 2) + (6 if zh else 0) + sum(x is not None for x in ops_in[1:])
+                     + (1 if diag == "vector" else 0)) * n
             for steady in (False, True):
-                kw = dict(l=l, steady=steady, g=g, stencil_hw=(n_side, n_side) if stencil else None,
-                          **sc)
-                tt = None if stencil else t
-                words = 2 * (3 * l + 2) * n + (0 if stencil else n)
-                flops = n * ((5 if stencil else 0) + (4 * l + 7 if steady else 2) + 2 * (2 * l + 1))
-                cases.append((f"fused_body[{'stencil' if stencil else 'streamed_t'},"
-                              f"{'steady' if steady else 'warmup'}]", "fused_body",
-                              (lambda kw=kw, tt=tt: ops.fused_body_apply(Vw, Zw, tt, **kw)),
-                              (lambda kw=kw, tt=tt: ref.fused_body_ref(Vw, Zw, tt, **kw)),
+                kw = dict(l=l, steady=steady, g=g, invd=invd,
+                          stencil_hw=(n_side, n_side) if stencil else None, **sc)
+                flops = n * ((5 if stencil else 0) + (1 if diag != "none" else 0)
+                             + (4 * l + 7 if steady else 2) + (5 if steady else 2) * zh
+                             + 2 * (2 * l + 1))
+                cases.append((f"fused_body[{mode},{'steady' if steady else 'warmup'}]",
+                              "fused_body",
+                              (lambda kw=kw, o=ops_in: ops.fused_body_apply(Vw, Zw, *o, **kw)),
+                              (lambda kw=kw, o=ops_in: ref.fused_body_ref(Vw, Zw, *o, **kw)),
                               None, words, flops))
+        # stencil2d: on the window column the split path passes (zero halos,
+        # beside the one library call that computes it), and on a contiguous
+        # block with random halos
+        hw = (n_side, n_side)
+        x_col = Zw[:, 0].unflatten(0, hw)
+        zero = [torch.zeros(n_side, dtype=dtype, device="cuda") for _ in range(4)]
+        x_blk, rand = randn(*hw), [randn(n_side) for _ in range(4)]
+        lap = torch.tensor([[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0], [0.0, -1.0, 0.0]], dtype=dtype,
+                           device="cuda").reshape(1, 1, 3, 3)
+        x_col_c = x_col.contiguous().reshape(1, 1, *hw)
+        conv = torch.nn.functional.conv2d
+        for label, x, halos, library in (
+                ("stencil2d[window_column,zero_halos]", x_col, zero,
+                 lambda: conv(x_col_c, lap, padding=1)),
+                ("stencil2d[contiguous,random_halos]", x_blk, rand, None)):
+            cases.append((label, "stencil2d",
+                          (lambda x=x, h=halos: ops.stencil2d_apply(x, *h)),
+                          (lambda x=x, h=halos: ref.stencil2d_ref(x, *h)),
+                          library, 2 * n + 4 * n_side, 5 * n))
         for label, W_, m in (("V-dots", Vw[:, :l + 1], l + 1), ("Z-dots", Zw[:, :l], l)):
             cases.append((f"multidot[{label},m={m}]", "multidot",
                           (lambda W_=W_: ops.multidot_apply(W_, t)),
@@ -148,11 +211,11 @@ def kernel_checks(torch, timer, n_side: int, l: int):
             before = launch_counts()[kernel]
             got, want = run(), plain()
             torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            abs_err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+            pairs = [(a, b) for a, b in zip(*((x if isinstance(x, tuple) else (x,))
+                                               for x in (got, want))) if b is not None]
+            abs_err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
             rel_err = max(float((a.double() - b.double()).abs().max() / b.double().abs().max())
-                          for a, b in zip(got, want))
+                          for a, b in pairs)
             delta = launch_counts()[kernel] - before
             ms, plain_ms = timer(run), timer(plain)
             library_ms = timer(library) if library is not None else None
@@ -171,6 +234,91 @@ def kernel_checks(torch, timer, n_side: int, l: int):
     return rows
 
 
+def preconditioned_path(torch, np, A, b, l, cfg, solve, Solver, make_prec, launch_counts,
+                        reset_launch_counts) -> dict:
+    """Phase 6: preconditioned p(l)-CG (paper Alg. 4) at full width through
+    ``solve()`` and a prepared ``Solver``; returns this path's launches."""
+    nx, ny = A.stencil2d
+    precs = {name: make() for name, make in make_prec.items()}
+    kw = dict(method="plcg_scan", l=l, tol=cfg.tol, maxiter=cfg.maxiter, device="cuda")
+    runs = [("jacobi", "fused"), ("blockjacobi", "fused"), ("chebyshev", "fused"),
+            ("chebyshev", "auto"), ("chebyshev", None)]
+    results = {}
+    reset_launch_counts()
+    spectrum_s = {}
+    for name, M in precs.items():          # BlockJacobi's power iteration, once, untimed
+        t0 = time.perf_counter()
+        M.precond_spectrum((0.0, 8.0), device="cuda")
+        spectrum_s[name] = time.perf_counter() - t0
+    for name, backend in runs:
+        want = EXPECTED_PREC[name]
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve(A, b, M=precs[name], backend=backend, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        bodies = r.info["bodies"]
+        true_rel = numpy_poisson_residual(r.x.cpu().numpy(), nx, ny)
+        results[name, backend] = r
+        emit({"phase": "prec_path", "prec": name, "name": r.info["prec"], "backend": backend,
+              "grid": [nx, ny], "l": l, "converged": r.converged, "iters": r.iters,
+              "breakdowns": r.breakdowns, "restarts": r.restarts, "sigma": r.info["sigma"],
+              "true_rel_residual": true_rel, "expected_from_jax_reference": want,
+              "spectrum_seconds": spectrum_s[name], "seconds": dt, "bodies": bodies,
+              "ms_per_body": 1e3 * dt / bodies, "launches": delta})
+        tag = f"M={name} backend={backend}"
+        check(r.converged, f"{tag}: not converged")
+        if name != "blockjacobi":
+            check(r.restarts == 0, f"{tag}: {r.restarts} restarts")
+            check(abs(r.iters - want["iters"]) <= 2, f"{tag}: {r.iters} updates")
+        else:
+            check(r.restarts <= BLOCKJACOBI_MAX_RESTARTS, f"{tag}: {r.restarts} restarts")
+        check(true_rel <= 1e-4, f"{tag}: true residual {true_rel}")
+        check(np.allclose(r.info["sigma"], want["sigma"], rtol=2e-3, atol=1e-3),
+              f"{tag}: shifts {r.info['sigma']}")
+        split = 0 if name == "jacobi" else bodies
+        expect = {"fused": {"fused_body": bodies, "multidot": 0, "stencil2d": split,
+                            "window_axpy": 0},
+                  "auto": {"fused_body": 0, "multidot": bodies + 2 * l - 1, "stencil2d": 0,
+                           "window_axpy": bodies - l},
+                  None: dict.fromkeys(delta, 0)}[backend]
+        check(delta == expect, f"{tag}: launches {delta}, expected {expect}")
+    for backend in ("auto", None):
+        x_f = results["chebyshev", "fused"].x
+        rel = float(torch.linalg.norm(results["chebyshev", backend].x - x_f)
+                    / torch.linalg.norm(x_f))
+        emit({"phase": "prec_path_agreement", "prec": "chebyshev", "backend": backend,
+              "vs": "fused", "x_rel_diff": rel})
+        check(rel <= 1e-8, f"chebyshev backend={backend} x differs from fused by {rel}")
+    t0 = time.perf_counter()
+    solver = Solver(A, "plcg_scan", l=l, tol=cfg.tol, maxiter=cfg.maxiter,
+                    M=make_prec["blockjacobi"](), backend="fused", device="cuda")
+    setup = time.perf_counter() - t0
+    for seed in (0, 1):
+        rb = A @ torch.from_numpy(np.random.default_rng(seed).standard_normal(A.n)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rr = solver.solve(rb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rel = float(torch.linalg.norm(rb - A @ rr.x) / torch.linalg.norm(rb))
+        emit({"phase": "prec_solver_request", "prec": "blockjacobi", "seed": seed,
+              "converged": rr.converged, "iters": rr.iters, "restarts": rr.restarts,
+              "true_rel_residual": rel, "seconds": dt,
+              "ms_per_body": 1e3 * dt / rr.info["bodies"],
+              "setup_seconds_incl_power_iteration": setup})
+        check(rr.converged, f"BlockJacobi Solver request seed={seed} did not converge")
+        check(rr.restarts <= BLOCKJACOBI_MAX_RESTARTS,
+              f"BlockJacobi Solver request seed={seed}: {rr.restarts} restarts")
+    totals = launch_counts()
+    emit({"phase": "prec_path_launches", "launches": totals})
+    for name, count in totals.items():
+        check(count > 0, f"kernel {name} was never launched on the preconditioned path")
+    return totals
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py runs from a checkout of the repository (src/repro_torch missing)",
@@ -186,12 +334,13 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.poisson2d import CONFIG
-    from repro_torch.core import Solver, chebyshev_shifts, solve
+    from repro_torch.core import BlockJacobi, Chebyshev, Solver, chebyshev_shifts, solve
     from repro_torch.kernels import build, launch_counts, reset_launch_counts
     from repro_torch.launch import solve as launch_solve
-    from repro_torch.operators import poisson2d
+    from repro_torch.operators import jacobi, poisson2d
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False          # the conv2d yardstick in full float32
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     card = smi.splitlines()[0]
@@ -241,10 +390,11 @@ def main() -> int:
         check(abs(r.iters - EXPECTED["iters"]) <= 2, f"backend={backend}: {r.iters} updates")
         check(true_rel <= 1e-4, f"backend={backend}: true residual {true_rel}")
         if backend == "fused":
-            check(delta == {"fused_body": bodies, "multidot": 0, "window_axpy": 0},
+            check(delta == {"fused_body": bodies, "multidot": 0, "stencil2d": 0,
+                            "window_axpy": 0},
                   f"fused launches {delta} for {bodies} bodies")
         elif backend == "auto":
-            check(delta == {"fused_body": 0, "multidot": bodies + 2 * l - 1,
+            check(delta == {"fused_body": 0, "multidot": bodies + 2 * l - 1, "stencil2d": 0,
                             "window_axpy": bodies - l},
                   f"cuda-tier launches {delta} for {bodies} bodies")
         else:
@@ -283,12 +433,23 @@ def main() -> int:
         check(rr.converged, f"Solver request seed={seed} did not converge")
     totals = launch_counts()
     emit({"phase": "main_path_launches", "launches": totals})
-    for name, count in totals.items():
-        check(count > 0, f"kernel {name} was never launched on the main path")
+    for name in ("fused_body", "multidot", "window_axpy"):
+        check(totals[name] > 0, f"kernel {name} was never launched on the main path")
 
-    # the shapes and mode each kernel runs in on the main path, at f64
+    # ---- phase 6: the preconditioned path at full width -----------------------
+    prec_totals = preconditioned_path(torch, np, A, b, l, CONFIG, solve, Solver,
+                                      {"jacobi": lambda: jacobi(A),
+                                       "blockjacobi": lambda: BlockJacobi((nx, ny)),
+                                       "chebyshev": lambda: Chebyshev(A, spectrum=(0.5, 8.0),
+                                                                      degree=3)},
+                                      launch_counts, reset_launch_counts)
+    totals = {k: totals[k] + prec_totals[k] for k in totals}
+
+    # the shapes and mode each kernel runs in on the main paths, at f64
     main_checks = {"fused_body": "fused_body[stencil,steady]",
-                   "multidot": f"multidot[Z-dots,m={l}]", "window_axpy": f"window_axpy[m={2 * l}]"}
+                   "multidot": f"multidot[Z-dots,m={l}]",
+                   "stencil2d": "stencil2d[window_column,zero_halos]",
+                   "window_axpy": f"window_axpy[m={2 * l}]"}
     summary = []
     for name, main_check in main_checks.items():
         row = next(r for r in rows if r["check"] == main_check and r["dtype"] == "float64")

@@ -16,11 +16,18 @@ counterpart of the JAX package's ``"pallas"`` per-kernel tier, and
 Every entry point runs on the CUDA card unless ``device="cpu"`` is passed;
 inputs are moved to the device, and asking for CUDA without a card raises.
 
+``M=`` takes a structured ``repro_torch.core.precond.Preconditioner``
+(``Jacobi`` folds into the fused kernel through its ``inv_diag`` hint;
+``BlockJacobi`` and ``Chebyshev`` take the 2-launch split) or a bare
+callable applying ``M^{-1} v``; ``Identity`` collapses to the
+unpreconditioned pipeline, and without ``sigma``/``spectrum`` the shifts
+come from ``M.precond_spectrum``.
+
 Knobs this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP item, never silently ignored: ``M=`` (A.6), a non-default
-``precision=`` (A.7), ``restart=<int>`` / ``residual_replacement=`` (A.8),
-``mesh=`` / ``comm=`` (A.9), ``l="auto"`` (A.10) and a batched
-``(nrhs, n)`` right-hand side (A.5).  ``restart="auto"`` resolves to
+ROADMAP item, never silently ignored: a non-default ``precision=`` (A.7),
+``restart=<int>`` / ``residual_replacement=`` (A.8), ``mesh=`` / ``comm=``
+and the mesh forms of the preconditioners (A.9), ``l="auto"`` (A.10) and
+a batched ``(nrhs, n)`` right-hand side (A.5).  ``restart="auto"`` resolves to
 ``None`` as in ``engine._prepare_restart``, so the default path is the
 host restart loop with ``max_restarts=5``.
 """
@@ -34,6 +41,7 @@ import torch
 from .linop import LinearOperator, dense_operator
 from .plcg_scan import plcg_solve
 from .precision import as_precision_policy
+from .precond import as_preconditioner
 from .results import SolveResult
 from .shifts import chebyshev_shifts
 
@@ -42,7 +50,7 @@ _REGISTRY: dict[str, "MethodSpec"] = {}
 
 @dataclasses.dataclass(frozen=True)
 class MethodSpec:
-    """Registry entry: ``fn(A, b, x0, *, tol, maxiter, l, sigma, spectrum,
+    """Registry entry: ``fn(A, b, x0, *, tol, maxiter, M, l, sigma, spectrum,
     backend, device, **options)`` returns a :class:`SolveResult`;
     ``options`` is the closed set of method-specific option keys."""
 
@@ -119,17 +127,32 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
-def _prepare_knobs(*, M, mesh, comm, precision):
+def _prepare_knobs(*, mesh, comm, precision):
     """The cross-cutting knobs this slice does not port raise up front;
     returns the (default) precision policy."""
-    if M is not None:
-        raise _not_ported("preconditioning (M=)", "A.6")
     if mesh is not None or comm is not None:
         raise _not_ported("the mesh execution path (mesh= / comm=)", "A.9")
     policy = as_precision_policy(precision)
     if not policy.is_default:
         raise _not_ported("a non-default precision policy (precision=)", "A.7")
     return policy
+
+
+def _prepare_preconditioner(M):
+    """Normalize ``M`` once: bare callables promote to the Preconditioner
+    protocol and Identity collapses to None (the unpreconditioned
+    pipeline)."""
+    return as_preconditioner(M).runtime()
+
+
+def _prepare_spectrum(M, sigma, spectrum, device):
+    """Default the shift interval from the preconditioned spectrum when the
+    preconditioner knows it and neither ``sigma`` nor ``spectrum`` is
+    given (BlockJacobi's estimate runs its power iteration here, once, on
+    the solve's device)."""
+    if M is not None and sigma is None and spectrum is None:
+        return M.precond_spectrum((0.0, 8.0), device=device)
+    return spectrum
 
 
 def _prepare_depth(l) -> int:
@@ -186,11 +209,11 @@ def solve(A, b, method: str = "plcg_scan", *, x0=None, tol: float = 1e-8,
 
 @register("plcg_scan", options=("exploit_symmetry", "max_restarts"),
           description="p(l)-CG production engine (Alg. 3), PyTorch / CUDA")
-def _method_plcg_scan(A, b, x0=None, *, tol=1e-8, maxiter=1000, l=1, sigma=None,
+def _method_plcg_scan(A, b, x0=None, *, tol=1e-8, maxiter=1000, M=None, l=1, sigma=None,
                       spectrum=None, backend=None, device="cuda", **kw):
     sig = _resolve_sigma(sigma, spectrum, l)
     x, resnorms, info = plcg_solve(A.matvec, b, x0, l=l, sigma=sig, tol=tol,
-                                   maxiter=maxiter, backend=backend,
+                                   maxiter=maxiter, prec=M, backend=backend,
                                    stencil_hw=A.stencil2d, device=device, **kw)
     return SolveResult(
         x=x, resnorms=resnorms, iters=info["iterations"], converged=info["converged"],
@@ -198,4 +221,5 @@ def _method_plcg_scan(A, b, x0=None, *, tol=1e-8, maxiter=1000, l=1, sigma=None,
         replacements=info["replacements"],
         info={"method": f"p({l})-CG[scan]", "l": l, "sigma": sig, "backend": backend,
               "restart": None, "residual_replacement": None, "precision": None,
-              "prec": None, "bodies": info["bodies"], "device": str(device)})
+              "prec": getattr(M, "name", None) if M is not None else None,
+              "bodies": info["bodies"], "device": str(device)})

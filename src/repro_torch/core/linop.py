@@ -1,7 +1,9 @@
 """Linear operator abstraction (port of ``repro.core.linop``).
 
 A :class:`LinearOperator` wraps a ``matvec`` callable on torch tensors; the
-solvers only ever call ``A @ v`` / ``A.matvec(v)``.  ``BindableOperator``
+solvers only ever call ``A @ v`` / ``A.matvec(v)``.  :class:`Preconditioner`
+is the legacy dataclass form of ``M^{-1}``, which
+``core.precond.as_preconditioner`` promotes.  ``BindableOperator``
 (rebindable operator data for Newton-CG training) is not ported yet.
 """
 from __future__ import annotations
@@ -40,6 +42,17 @@ class LinearOperator:
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return self.matvec(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class Preconditioner:
+    """SPD preconditioner; ``apply`` computes ``M^{-1} v``."""
+
+    apply: Callable[[torch.Tensor], torch.Tensor]
+    name: str = "M"
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return self.apply(v)
 
 
 def dense_operator(A, name: str = "dense", device="cuda") -> LinearOperator:

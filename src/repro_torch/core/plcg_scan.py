@@ -30,6 +30,12 @@ early: the bodies it skips would change nothing, so ``resnorms`` and
 ``committed`` (``iters`` rows, zeros where nothing was committed) are
 exactly what the full sweep returns.
 
+With a preconditioner ``prec`` (paper Alg. 4) the engine also carries the
+zhat window ``Zhw (n, 3)`` of the unpreconditioned auxiliary basis: the
+body computes ``t_hat = A z_i`` and ``t = prec(t_hat)``, runs the z
+recurrence on ``t`` and the zhat recurrence on ``t_hat``, and takes every
+payload dot against ``zhat_new``.
+
 ``backend`` selects the implementation of the body's vector work:
 
   * ``None``    -- inline torch math;
@@ -43,7 +49,14 @@ exactly what the full sweep returns.
     from the symmetry of G, as the reference does);
   * ``"fused"`` -- ONE ``fused_body`` launch per body: (K4) + (K5), plus
     the (K1) SPMV when ``stencil_hw`` marks the operator as the 2-D
-    Poisson stencil; otherwise the operator's ``t = A z`` streams in;
+    Poisson stencil; otherwise the operator's ``t = A z`` streams in.  A
+    diagonal preconditioner (``prec_diag`` set: the ``inv_diag`` hint of a
+    structured ``Preconditioner``) folds into the same launch (SPMV +
+    diag apply + zhat recurrence in the kernel); a general ``prec`` with
+    the stencil hint takes a 2-launch split (the ``stencil2d`` kernel,
+    then ``prec`` in plain torch, then ``fused_body`` with streamed
+    ``t``/``t_hat``), and without the hint streams ``t``/``t_hat`` into
+    one launch;
   * ``"auto"``  -- ``"cuda"`` for tensors on a CUDA device, ``"ref"`` on
     the CPU.
 
@@ -54,9 +67,8 @@ a pointer to ``"cuda"``.  On a CUDA device the engine sets
 the inline tier and of dense operators runs in full float32.
 
 Not ported yet, each raising ``NotImplementedError`` where it is asked
-for: preconditioning (ROADMAP A.6), non-default precision policies (A.7),
-the in-scan restart / residual replacement machinery (A.8), injected dots
-and ``comm=`` (A.9).
+for: non-default precision policies (ROADMAP A.7), the in-scan restart /
+residual replacement machinery (A.8), injected dots and ``comm=`` (A.9).
 """
 from __future__ import annotations
 
@@ -93,11 +105,12 @@ def resolve_backend(backend, device: torch.device):
 
 @dataclasses.dataclass
 class PLCGState:
-    """Sweep state, laid out as the JAX engine's ``PLCGState``.  The zhat
-    window and the restart micro-state wait for ROADMAP A.6 / A.8."""
+    """Sweep state, laid out as the JAX engine's ``PLCGState``.  The
+    restart micro-state waits for ROADMAP A.8."""
 
     Zw: torch.Tensor         # (n, l+1)  z_i .. z_{i-l}        (slot 0 newest)
     Vw: torch.Tensor         # (n, 2l+1) v_{i-l} .. v_{i-3l}   (slot 0 newest)
+    Zhw: Optional[torch.Tensor]  # (n, 3) zhat window (preconditioned) or None
     Gb: torch.Tensor         # (ncols, 2l+1) banded G, row c = band of column c
     gam: torch.Tensor        # (ncols,)
     dlt: torch.Tensor        # (ncols,)
@@ -131,6 +144,8 @@ def plcg_scan(
     iters: int,
     sigma: Sequence[float],
     tol: float = 0.0,
+    prec: Optional[Callable] = None,
+    prec_diag=None,
     exploit_symmetry: bool = True,
     backend: Optional[str] = None,
     stencil_hw: Optional[tuple] = None,
@@ -142,9 +157,11 @@ def plcg_scan(
     iters-l-1); see the module docstring for the tiers and the freeze.
 
     ``b`` and ``x0`` are moved to ``device`` (default the CUDA card).
-    ``k_budget`` (a host int >= 1) freezes the sweep -- without setting
-    ``converged`` or ``breakdown`` -- once that many solution updates have
-    been committed.
+    ``prec`` applies ``M^{-1}``; ``prec_diag`` (a scalar or an ``(n,)``
+    inverse diagonal, the ``inv_diag`` hint) lets ``backend="fused"`` apply
+    it inside its one launch.  ``k_budget`` (a host int >= 1) freezes the
+    sweep -- without setting ``converged`` or ``breakdown`` -- once that
+    many solution updates have been committed.
     """
     if l < 1:
         raise ValueError("l must be >= 1")
@@ -165,10 +182,29 @@ def plcg_scan(
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=dev).to(cdt)
     use_fused = backend == "fused"
     use_kernels = backend in ("cuda", "ref")
-    fuse_stencil = use_fused and stencil_hw is not None
+    # fused-tier dispatch on the preconditioner structure:
+    #   fuse_diag     -- M^{-1} is a diagonal multiply (the inv_diag hint):
+    #                    applied in the kernel, ONE launch per body;
+    #   fuse_stencil  -- the (K1) SPMV runs in the kernel too (stencil hint
+    #                    and either no prec or a fused diagonal one);
+    #   split_stencil -- general prec with a stencil hint: the stencil2d
+    #                    kernel, prec in plain torch, then fused_body.
+    fuse_diag = use_fused and prec is not None and prec_diag is not None
+    fuse_stencil = use_fused and stencil_hw is not None and (prec is None or fuse_diag)
+    split_stencil = use_fused and stencil_hw is not None and not fuse_stencil
     n = b.shape[0]
-    if fuse_stencil and stencil_hw[0] * stencil_hw[1] != n:
+    if (fuse_stencil or split_stencil) and stencil_hw[0] * stencil_hw[1] != n:
         raise ValueError(f"stencil_hw {stencil_hw} inconsistent with n={n}")
+    invd = None
+    if fuse_diag:
+        # the kernel applies t = invd * t_hat on the storage stream
+        invd = torch.as_tensor(prec_diag, dtype=cdt, device=dev)
+        if invd.dim() not in (0, 1) or (invd.dim() == 1 and invd.shape[0] != n):
+            raise ValueError(f"prec_diag must be a scalar or ({n},), got {tuple(invd.shape)}")
+    halos = None
+    if split_stencil:                    # zero Dirichlet halos, made once a sweep
+        row, col = (torch.zeros(m, dtype=cdt, device=dev) for m in stencil_hw[::-1])
+        halos = (row, row, col, col)
     if backend == "ref":
         mdot, waxpy = kref.multidot_ref, kref.window_axpy_ref
     else:
@@ -184,21 +220,27 @@ def plcg_scan(
 
     # ---- initialization (Alg. 2 lines 1-3) -------------------------------
     rhat0 = b - matvec(x).to(cdt)
-    init_pay = torch.stack([torch.dot(rhat0, rhat0), torch.dot(b, b)])
+    r0 = prec(rhat0).to(cdt) if prec is not None else rhat0
+    Mb = prec(b).to(cdt) if prec is not None else b
+    init_pay = torch.stack([torch.dot(rhat0, r0), torch.dot(b, Mb)])
     beta0 = torch.sqrt(init_pay[0])
     bnorm = torch.sqrt(init_pay[1])
     bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
     tol_b = tol * bnorm
-    v0 = rhat0 / beta0
+    v0 = r0 / beta0
     Zw = torch.zeros((n, l + 1), dtype=cdt, device=dev)
     Zw[:, 0] = v0
     Vw = torch.zeros((n, W), dtype=cdt, device=dev)
     Vw[:, 0] = v0
+    Zhw = None
+    if prec is not None:
+        Zhw = torch.zeros((n, 3), dtype=cdt, device=dev)
+        Zhw[:, 0] = rhat0 / beta0
     Gb = torch.zeros((ncols, W), dtype=cdt, device=dev)
     Gb[0, 2 * l] = 1.0
     false = torch.zeros((), dtype=torch.bool, device=dev)
     st = PLCGState(
-        Zw=Zw, Vw=Vw, Gb=Gb,
+        Zw=Zw, Vw=Vw, Zhw=Zhw, Gb=Gb,
         gam=torch.zeros(ncols, dtype=cdt, device=dev),
         dlt=torch.zeros(ncols, dtype=cdt, device=dev),
         inflight=collections.deque(torch.zeros(W, dtype=cdt, device=dev) for _ in range(l)),
@@ -207,7 +249,9 @@ def plcg_scan(
         done=false.clone(), converged=false.clone(), breakdown=false.clone())
     resnorms = torch.zeros(iters, dtype=cdt, device=dev)
     committed = torch.zeros(iters, dtype=torch.bool, device=dev)
-    spare = (torch.empty_like(Vw), torch.empty_like(Zw)) if use_fused else None
+    # the fused kernel writes new windows into a second set, swapped per body
+    spare = (tuple(torch.empty_like(w) for w in (Vw, Zw, Zhw) if w is not None)
+             if use_fused else None)
 
     def scalar_block(ph, c, col_in):
         """(K2)+(K3): finalize column c of G from the arrived payload and
@@ -278,7 +322,7 @@ def plcg_scan(
             vrev = vrev * keep
         return torch.cat([vrev, zd.flip(0)])
 
-    def finalize(i, ph, payload, brk, x2, p2, eta2, zeta2, k2, Vw2, Zw2):
+    def finalize(i, ph, payload, brk, x2, p2, eta2, zeta2, k2, Vw2, Zw2, Zhw2):
         """Queue push + convergence / freeze commit (see module docstring)."""
         st.inflight.append(payload)
         steady = ph >= l
@@ -298,11 +342,12 @@ def plcg_scan(
             st.done = st.done | brk_term | conv_now | (active if spent else false)
             st.converged = st.converged | conv_now
             st.breakdown = st.breakdown | brk_term
-        st.p, st.eta, st.zeta, st.Vw, st.Zw = p2, eta2, zeta2, Vw2, Zw2
+        st.p, st.eta, st.zeta, st.Vw, st.Zw, st.Zhw = p2, eta2, zeta2, Vw2, Zw2, Zhw2
 
     def body(i):
         ph = i
-        t = matvec(st.Zw[:, 0]).to(cdt)               # (K1) SPMV
+        t_hat = matvec(st.Zw[:, 0]).to(cdt)           # (K1) SPMV
+        t = prec(t_hat).to(cdt) if prec is not None else t_hat
         col_in = st.inflight.popleft()
         steady = ph >= l
         if steady:
@@ -316,30 +361,40 @@ def plcg_scan(
             Vw2 = torch.cat([vnew[:, None], st.Vw[:, :-1]], dim=1)
             # (K4) z recurrence (line 18)
             znew = (t - gam_c1 * st.Zw[:, 0] - dsub * st.Zw[:, 1]) / dlt_c1
+            if prec is not None:
+                zhnew = (t_hat - gam_c1 * st.Zhw[:, 0] - dsub * st.Zhw[:, 1]) / dlt_c1
             x2, p2, eta2, zeta2, k2 = solution_update(ph, Vw2[:, 1])
         else:
-            znew = t - sig[min(ph, l - 1)] * st.Zw[:, 0]
+            s_warm = sig[min(ph, l - 1)]
+            znew = t - s_warm * st.Zw[:, 0]
+            if prec is not None:
+                zhnew = t_hat - s_warm * st.Zhw[:, 0]
             Vw2, brk = st.Vw, None
             x2, p2, eta2, zeta2, k2 = st.x, st.p, st.eta, st.zeta, st.k_done
         Zw2 = torch.cat([znew[:, None], st.Zw[:, :-1]], dim=1)
+        Zhw2, lhs = st.Zhw, znew
+        if prec is not None:
+            Zhw2, lhs = torch.cat([zhnew[:, None], st.Zhw[:, :-1]], dim=1), zhnew
         # (K5) dot-product payload for column i+1
         if exploit_symmetry and ph >= 2 * l - 1:
-            vd = torch.cat([torch.dot(Vw2[:, 0], znew).reshape(1), zeros_l])
+            vd = torch.cat([torch.dot(Vw2[:, 0], lhs).reshape(1), zeros_l])
         elif use_kernels:
-            vd = mdot(Vw2[:, :l + 1], znew).to(cdt)
+            vd = mdot(Vw2[:, :l + 1], lhs).to(cdt)
         elif exploit_symmetry:
-            vd = znew @ Vw2[:, :l + 1]
+            vd = lhs @ Vw2[:, :l + 1]
         else:
-            vd = torch.stack([torch.dot(Vw2[:, j], znew) for j in range(l + 1)])
+            vd = torch.stack([torch.dot(Vw2[:, j], lhs) for j in range(l + 1)])
         if use_kernels:
-            zd = mdot(Zw2[:, :l], znew).to(cdt)
+            zd = mdot(Zw2[:, :l], lhs).to(cdt)
         else:
-            zd = torch.stack([torch.dot(Zw2[:, j], znew) for j in range(l)])
-        finalize(i, ph, payload_of(ph, vd, zd), brk, x2, p2, eta2, zeta2, k2, Vw2, Zw2)
+            zd = torch.stack([torch.dot(Zw2[:, j], lhs) for j in range(l)])
+        finalize(i, ph, payload_of(ph, vd, zd), brk, x2, p2, eta2, zeta2, k2, Vw2, Zw2, Zhw2)
 
     def body_fused(i):
-        """One ``fused_body`` launch: (K1 when the stencil is fused) + (K4)
-        + (K5); only the O(l^2) scalar recurrences stay in torch."""
+        """One ``fused_body`` launch: (K1 when the stencil is fused, and the
+        diagonal preconditioner when it is fused) + (K4) + (K5); only the
+        O(l^2) scalar recurrences stay in torch.  A general preconditioner
+        with the stencil hint adds one ``stencil2d`` launch before it."""
         nonlocal spare
         ph = i
         col_in = st.inflight.popleft()
@@ -350,12 +405,26 @@ def plcg_scan(
         else:  # the kernel ignores the steady-only scalars in a warmup body
             gcc, brk, gam_c1, dlt_c1, dsub = 1.0, None, 0.0, 1.0, 0.0
             g = torch.zeros(2 * l, dtype=cdt, device=dev)
-        t = None if fuse_stencil else matvec(st.Zw[:, 0]).to(cdt).contiguous()
-        Vw2, Zw2, dots = kops.fused_body_apply(
-            st.Vw, st.Zw, t, l=l, steady=steady, s_warm=sig[min(ph, l - 1)],
-            gam=gam_c1, dlt=dlt_c1, dsub=dsub, gcc=gcc, g=g,
-            stencil_hw=stencil_hw if fuse_stencil else None, out=spare)
-        spare = (st.Vw, st.Zw)
+        if fuse_stencil:
+            t = t_hat = None                # SPMV (+ diag apply) in the kernel
+        else:
+            if split_stencil:               # launch 1 of the 2-launch split
+                z2d = st.Zw[:, 0].unflatten(0, stencil_hw)
+                t_hat = kops.stencil2d_apply(z2d, *halos).reshape(-1)
+            else:
+                t_hat = matvec(st.Zw[:, 0]).to(cdt).contiguous()
+            if prec is None:
+                t = t_hat
+            elif fuse_diag:
+                t = None                    # the kernel applies invd to t_hat
+            else:
+                t = prec(t_hat).to(cdt).contiguous()
+        Vw2, Zw2, Zhw2, dots = kops.fused_body_apply(
+            st.Vw, st.Zw, st.Zhw, t, t_hat if prec is not None else None, l=l,
+            steady=steady, s_warm=sig[min(ph, l - 1)], gam=gam_c1, dlt=dlt_c1, dsub=dsub,
+            gcc=gcc, g=g, invd=invd, stencil_hw=stencil_hw if fuse_stencil else None,
+            out=spare)
+        spare = tuple(w for w in (st.Vw, st.Zw, st.Zhw) if w is not None)
         dots = dots.to(cdt)
         if steady:
             x2, p2, eta2, zeta2, k2 = solution_update(ph, Vw2[:, 1])
@@ -368,7 +437,7 @@ def plcg_scan(
         else:
             vd = dots[:l + 1]
         finalize(i, ph, payload_of(ph, vd, dots[l + 1:]), brk, x2, p2, eta2, zeta2,
-                 k2, Vw2, Zw2)
+                 k2, Vw2, Zw2, Zhw2)
 
     step = body_fused if use_fused else body
     bodies = 0
@@ -443,13 +512,15 @@ def run_restart_driver(sweep, b, x0, *, tol: float, maxiter: int, max_restarts: 
     }
 
 
-def plcg_solve(matvec, b, x0=None, *, l, sigma, tol=1e-8, maxiter=1000,
+def plcg_solve(matvec, b, x0=None, *, l, sigma, tol=1e-8, maxiter=1000, prec=None,
                exploit_symmetry: bool = True, max_restarts: int = 5,
                backend: Optional[str] = None, stencil_hw: Optional[tuple] = None,
                precision=None, device="cuda"):
     """Driver around the engine: explicit restart on square-root breakdown
     (paper Remark 8), happy-breakdown detection, and a GLOBAL iteration
     budget across restart sweeps (each sweep gets the remaining budget).
+    ``prec`` applies ``M^{-1}``; its ``inv_diag`` hint, when it has one,
+    is forwarded as the engine's ``prec_diag``.
 
     Returns (x, resnorms, info dict).
     """
@@ -460,12 +531,13 @@ def plcg_solve(matvec, b, x0=None, *, l, sigma, tol=1e-8, maxiter=1000,
     if bnorm == 0:
         bnorm = 1.0
     iters = maxiter + l + 1
+    prec_diag = getattr(prec, "inv_diag", None)
 
     def sweep(bb, xx, kb):
-        return plcg_scan(matvec, bb, xx, l=l, iters=iters, sigma=sigma, tol=tol,
-                         exploit_symmetry=exploit_symmetry, backend=backend,
-                         stencil_hw=stencil_hw, k_budget=kb, precision=precision,
-                         device=dev)
+        return plcg_scan(matvec, bb, xx, l=l, iters=iters, sigma=sigma, tol=tol, prec=prec,
+                         prec_diag=prec_diag, exploit_symmetry=exploit_symmetry,
+                         backend=backend, stencil_hw=stencil_hw, k_budget=kb,
+                         precision=precision, device=dev)
 
     return run_restart_driver(sweep, b, x0, tol=tol, maxiter=maxiter,
                               max_restarts=max_restarts, bnorm=bnorm)

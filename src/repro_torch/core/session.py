@@ -3,8 +3,9 @@ single right-hand side).
 
 ``Solver(A, l=3, backend="fused")`` runs every per-problem step once --
 method lookup, option and knob validation, device resolution, operator
-promotion, shift defaulting -- and ``solver.solve(b, x0=..., tol=...,
-maxiter=...)`` then runs with no re-setup.  There is no compiled program
+promotion, preconditioner promotion, shift defaulting (including a
+preconditioner's spectrum estimate) -- and ``solver.solve(b, x0=...,
+tol=..., maxiter=...)`` then runs with no re-setup.  There is no compiled program
 to hold yet (CUDA graph capture is ROADMAP A.4); the micro-batching
 ``submit``/``SolverPool`` layer and the batched sweeps wait for A.4 / A.5.
 """
@@ -37,7 +38,8 @@ class Solver:
                  device="cuda", n: Optional[int] = None, **options):
         spec = engine.get_method(method)
         engine._prepare_options(spec, options)
-        engine._prepare_knobs(M=M, mesh=mesh, comm=comm, precision=precision)
+        engine._prepare_knobs(mesh=mesh, comm=comm, precision=precision)
+        self.M = engine._prepare_preconditioner(M)
         self.l = engine._prepare_depth(l)
         engine._prepare_restart(restart, residual_replacement)
         self.device = resolve_device(device)
@@ -47,6 +49,7 @@ class Solver:
         self.tol = tol
         self.maxiter = maxiter
         self.backend = backend
+        spectrum = engine._prepare_spectrum(self.M, sigma, spectrum, self.device)
         self.sigma = engine._resolve_sigma(sigma, spectrum, self.l)
         self.options = dict(options)
         self.stats = {"calls": 0}
@@ -71,7 +74,8 @@ class Solver:
         self.stats["calls"] += 1
         b = engine._as_rhs(b, self.device)
         op = self._ensure_op(b)
-        return self.spec.fn(op, b, x0, tol=tol, maxiter=maxiter, l=self.l, sigma=self.sigma,
-                            backend=self.backend, device=self.device, **self.options)
+        return self.spec.fn(op, b, x0, tol=tol, maxiter=maxiter, M=self.M, l=self.l,
+                            sigma=self.sigma, backend=self.backend, device=self.device,
+                            **self.options)
 
     __call__ = solve

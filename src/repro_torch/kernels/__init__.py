@@ -1,6 +1,7 @@
 """Kernels of the port: hand-written CUDA C++ for Hopper (``csrc/``), their
-ctypes launchers (``multidot``, ``window_axpy``, ``fused_body``), their
-plain PyTorch versions (``ref``) and the device dispatch (``ops``).
+ctypes launchers (``stencil2d``, ``multidot``, ``window_axpy``,
+``fused_body``), their plain PyTorch versions (``ref``) and the device
+dispatch (``ops``).
 
 ``LAUNCHES`` counts the CUDA launches of each kernel wrapper (one per call
 that launches the kernel, nowhere else), so a run can show that its main
@@ -8,7 +9,7 @@ path went through the kernels.  Read it with :func:`launch_counts`, zero
 it with :func:`reset_launch_counts`.
 """
 
-LAUNCHES = {"fused_body": 0, "multidot": 0, "window_axpy": 0}
+LAUNCHES = {"fused_body": 0, "multidot": 0, "stencil2d": 0, "window_axpy": 0}
 
 
 def launch_counts() -> dict:

@@ -36,8 +36,14 @@ _SIGNATURES = {
     "repro_multidot_f64": [_P, _I64, _P, _I64, _I64, _INT, _P, _P, _P],
     "repro_window_axpy_f32": [_P, _I64, _P, _I64, _P, _I64, _INT, _P, _P],
     "repro_window_axpy_f64": [_P, _I64, _P, _I64, _P, _I64, _INT, _P, _P],
-    "repro_fused_body_f32": [_P, _P, _P, _P, _I64, _INT, _I64, _I64, _P, _P, _P, _P, _P],
-    "repro_fused_body_f64": [_P, _P, _P, _P, _I64, _INT, _I64, _I64, _P, _P, _P, _P, _P],
+    "repro_stencil2d_f32": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I64,
+                            _I64, _P, _P],
+    "repro_stencil2d_f64": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I64,
+                            _I64, _P, _P],
+    "repro_fused_body_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _I64, _I64, _P, _P,
+                             _P, _P, _P, _P],
+    "repro_fused_body_f64": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _I64, _I64, _P, _P,
+                             _P, _P, _P, _P],
 }
 
 

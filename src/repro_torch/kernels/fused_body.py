@@ -2,16 +2,18 @@
 
 Replaces the Pallas TPU megakernel ``repro.kernels.fused_body.fused_body``:
 one launch per body computes the (K1) 5-point SPMV on ``Zw[:, 0]`` (with
-``stencil_hw``) or reads a streamed ``t``, the (K4) v/z window recurrences
-(warmup or steady on the packed ``steady`` flag) and the (K5) 2l+1 payload
-dots against the updated windows.  Scalars arrive packed on the device as
+``stencil_hw``) or reads a streamed ``t`` / ``t_hat``, the in-body diagonal
+preconditioner ``t = invd * t_hat`` (``invd`` a scalar riding the packed
+scalars, or an ``(n,)`` operand), the (K4) v/z window recurrences and,
+with the zhat window ``Zhw (n, 3)``, the zhat recurrence (warmup or steady
+on the packed ``steady`` flag), and the (K5) 2l+1 payload dots against the
+updated windows -- against ``zhat_new`` when ``Zhw`` is given.  Scalars
+arrive packed on the device as
 ``scal (1, 7+2l) = [steady, s_warm, gam, dlt, dsub, gcc, invd, g_0..g_{2l-1}]``.
 
 The kernel writes the new windows into separate output buffers (other
 blocks read ``Zw[:, 0]`` as stencil neighbours while it runs), so ``out``
-must not overlap the inputs; the engine ping-pongs two window pairs.
-The zhat window and the in-body diagonal preconditioner wait for ROADMAP
-A.6.
+must not overlap any input; the engine ping-pongs two window sets.
 """
 from __future__ import annotations
 
@@ -24,50 +26,65 @@ from .ref import acc_dtype
 
 #: scal layout: [steady, s_warm, gam, dlt, dsub, gcc, invd, g_0 .. g_{2l-1}]
 N_FIXED_SCALARS = 7
+_DIAG_CODE = {"none": 0, "scalar": 1, "vector": 2}
 
 
-def fused_body(Vw: torch.Tensor, Zw: torch.Tensor, scal: torch.Tensor,
-               t: Optional[torch.Tensor], *, l: int, stencil_hw=None,
+def _check_operand(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype) -> None:
+    if tuple(x.shape) != shape or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"fused_body: {name} must be a contiguous {shape} {dtype} tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+
+
+def fused_body(Vw: torch.Tensor, Zw: torch.Tensor, Zhw: Optional[torch.Tensor],
+               scal: torch.Tensor, t: Optional[torch.Tensor], t_hat: Optional[torch.Tensor],
+               invd: Optional[torch.Tensor], *, l: int, diag: str, stencil_hw=None,
                out: Optional[tuple] = None):
-    """Launch the kernel on CUDA tensors; returns ``(Vw2, Zw2, dots)`` with
-    ``dots (2l+1,)`` in the accumulation dtype."""
+    """Launch the kernel on CUDA tensors; returns ``(Vw2, Zw2, Zhw2 | None,
+    dots)`` with ``dots (2l+1,)`` in the accumulation dtype.  The caller
+    (``ops.fused_body_apply``) has validated the operand combination with
+    ``ref.fused_body_diag``, which gave ``diag`` ("scalar" reads
+    ``scal[6]``, "vector" the ``(n,)`` ``invd``); ``out`` optionally names
+    the buffers that receive the new windows."""
     sfx = _launch.suffix(Vw.dtype)
     if not 1 <= l <= build.load().lib.repro_max_depth():
         raise ValueError(f"fused_body: l={l} outside the built range")
     n = Vw.shape[0]
     m = 2 * l + 1
-    acc = acc_dtype(Vw.dtype)
-    operands = [Vw, Zw, scal] + ([t] if t is not None else [])
+    dt = Vw.dtype
+    acc = acc_dtype(dt)
+    inputs = {"Vw": Vw, "Zw": Zw, "Zhw": Zhw, "scal": scal, "t": t, "t_hat": t_hat,
+              "invd": invd}
+    operands = [x for x in inputs.values() if x is not None]
     dev = _launch.check_cuda("fused_body", *operands)
-    for name, x, shape, dtype in (("Vw", Vw, (n, m), Vw.dtype), ("Zw", Zw, (n, l + 1), Vw.dtype),
-                                  ("scal", scal, (1, N_FIXED_SCALARS + 2 * l), acc)):
-        if tuple(x.shape) != shape or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"fused_body: {name} must be a contiguous {shape} {dtype} "
-                             f"tensor, got {tuple(x.shape)} {x.dtype}")
-    if t is None:
-        if stencil_hw is None:
-            raise ValueError("fused_body: pass the streamed t or stencil_hw")
-        H, W2d = stencil_hw
-        if H * W2d != n:
-            raise ValueError(f"fused_body: stencil_hw {stencil_hw} != n={n}")
-    else:
-        if stencil_hw is not None:
-            raise ValueError("fused_body: t is computed in-kernel with stencil_hw; pass t=None")
-        if tuple(t.shape) != (n,) or t.dtype != Vw.dtype or not t.is_contiguous():
-            raise ValueError(f"fused_body: t must be a contiguous ({n},) {Vw.dtype} tensor")
-        H = W2d = 0
-    Vo, Zo = out if out is not None else (torch.empty_like(Vw), torch.empty_like(Zw))
-    for name, o, x in (("Vw2", Vo, Vw), ("Zw2", Zo, Zw)):
+    shapes = {"Vw": ((n, m), dt), "Zw": ((n, l + 1), dt), "Zhw": ((n, 3), dt),
+              "scal": ((1, N_FIXED_SCALARS + 2 * l), acc), "t": ((n,), dt),
+              "t_hat": ((n,), dt), "invd": ((n,), dt)}
+    for name, x in inputs.items():
+        if x is not None:
+            _check_operand(name, x, *shapes[name])
+    H, W2d = stencil_hw if stencil_hw is not None else (0, 0)
+    windows = [Vw, Zw] + ([Zhw] if Zhw is not None else [])
+    outs = list(out) if out is not None else [torch.empty_like(x) for x in windows]
+    if len(outs) != len(windows):
+        raise ValueError(f"fused_body: out must name {len(windows)} window buffers")
+    for name, o, x in zip(("Vw2", "Zw2", "Zhw2"), outs, windows):
         if o.shape != x.shape or o.dtype != x.dtype or not o.is_contiguous() or o.device != dev:
             raise ValueError(f"fused_body: output {name} must match its input window")
         if any(_launch.overlaps(o, src) for src in operands):
             raise ValueError(f"fused_body: output {name} overlaps an input")
-    if _launch.overlaps(Vo, Zo):
-        raise ValueError("fused_body: the two output windows overlap")
+    if any(_launch.overlaps(a, b) for i, a in enumerate(outs) for b in outs[i + 1:]):
+        raise ValueError("fused_body: the output windows overlap")
+    Zho = outs[2] if Zhw is not None else None
     partial = torch.empty(_launch.reduce_blocks(n) * m, dtype=acc, device=dev)
     dots = torch.empty(m, dtype=acc, device=dev)
-    _launch.call(f"repro_fused_body_{sfx}", Vw.data_ptr(), Zw.data_ptr(), scal.data_ptr(),
-                 None if t is None else t.data_ptr(), n, l, H, W2d, Vo.data_ptr(),
-                 Zo.data_ptr(), partial.data_ptr(), dots.data_ptr(), _launch.stream(dev))
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    _launch.call(f"repro_fused_body_{sfx}", Vw.data_ptr(), Zw.data_ptr(), ptr(Zhw),
+                 scal.data_ptr(), ptr(t), ptr(t_hat), ptr(invd), n, l, _DIAG_CODE[diag], H,
+                 W2d, outs[0].data_ptr(), outs[1].data_ptr(), ptr(Zho), partial.data_ptr(),
+                 dots.data_ptr(), _launch.stream(dev))
     LAUNCHES["fused_body"] += 1
-    return Vo, Zo, dots
+    return outs[0], outs[1], Zho, dots
+

@@ -2,13 +2,18 @@
 the 2-D Poisson problem, through ``repro_torch.core.solve`` on one device.
 
   python -m repro_torch.launch.solve --backend fused           # 1000x1000, l=3
+  python -m repro_torch.launch.solve --backend fused --prec blockjacobi
   python -m repro_torch.launch.solve --nx 64 --device cpu --backend ref
   python -m repro_torch.launch.solve --backend fused --iters 300 --tol 0 --profile
 
 Defaults follow ``repro_torch.configs.poisson2d.CONFIG`` (the paper's
 Sec. 5 test setup 1); the right-hand side is ``b = A 1`` as in
-``repro.launch.solve``.  Prints one line with the outcome, the true
-relative residual, the wall time per body and the kernel launch counts.
+``repro.launch.solve``.  ``--prec`` picks the preconditioner as that
+launcher does on one device: ``jacobi(A)``, ``BlockJacobi((nx, ny))`` or
+``Chebyshev(A, spectrum=(0.5, 8.0), degree=3)``; with one, the shifts come
+from its ``precond_spectrum`` instead of (0, 8).  Prints one line with the
+outcome, the true relative residual, the wall time per body and the
+kernel launch counts.
 
 ``--profile`` (CUDA only) solves once to warm up, then runs the same solve
 under ``torch.profiler`` and adds one JSON line saying where a body's time
@@ -28,10 +33,10 @@ import time
 import torch
 
 from ..configs.poisson2d import CONFIG
-from ..core import chebyshev_shifts, solve
+from ..core import BlockJacobi, Chebyshev, chebyshev_shifts, solve
 from ..device import resolve_device
 from ..kernels import launch_counts
-from ..operators import poisson2d
+from ..operators import jacobi, poisson2d
 
 
 def _sync(dev: torch.device) -> None:
@@ -64,6 +69,10 @@ def main(argv=None):
     ap.add_argument("--tol", type=float, default=CONFIG.tol)
     ap.add_argument("--backend", type=str, default=None,
                     help="kernel tier: fused|cuda|ref|auto (default: inline torch)")
+    ap.add_argument("--prec", type=str, default="none",
+                    choices=["none", "jacobi", "blockjacobi", "chebyshev"],
+                    help="preconditioner: jacobi folds into the fused kernel, "
+                    "blockjacobi/chebyshev take the stencil2d + fused_body split")
     ap.add_argument("--dtype", type=str, default=CONFIG.dtype,
                     choices=["float32", "float64"])
     ap.add_argument("--device", type=str, default="cuda")
@@ -77,9 +86,14 @@ def main(argv=None):
     ny = args.ny or args.nx
     A = poisson2d(args.nx, ny)
     b = A @ torch.ones(A.n, dtype=getattr(torch, args.dtype), device=dev)
-    kw = dict(method="plcg_scan", l=args.l, tol=args.tol, maxiter=args.iters,
-              sigma=chebyshev_shifts(CONFIG.lmin, CONFIG.lmax, args.l),
-              backend=args.backend, device=dev)
+    M = {"none": lambda: None, "jacobi": lambda: jacobi(A),
+         "blockjacobi": lambda: BlockJacobi((args.nx, ny)),
+         "chebyshev": lambda: Chebyshev(A, spectrum=(0.5, 8.0), degree=3)}[args.prec]()
+    # with a preconditioner the engine derives the shift interval from
+    # M.precond_spectrum; the (0, 8) shifts are for M=None only
+    sigma = None if M is not None else chebyshev_shifts(CONFIG.lmin, CONFIG.lmax, args.l)
+    kw = dict(method="plcg_scan", l=args.l, tol=args.tol, maxiter=args.iters, sigma=sigma,
+              M=M, backend=args.backend, device=dev)
     prof = contextlib.nullcontext()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -97,13 +111,14 @@ def main(argv=None):
     bodies = r.info["bodies"]
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"plcg_scan (l={args.l}, backend={args.backend}, {args.dtype}) on "
+    print(f"plcg_scan (l={args.l}, backend={args.backend}, prec={args.prec}, {args.dtype}) on "
           f"{args.nx}x{ny} over {where}: {r.iters} iters, converged={r.converged}, "
           f"breakdowns={r.breakdowns}, restarts={r.restarts}, "
           f"|b-Ax|/|b| = {true_rel:.3e}, {dt:.3f} s, {bodies} bodies, "
           f"{1e6 * dt / max(bodies, 1):.1f} us/body, launches={launches}")
     if args.profile:
-        print(json.dumps({"backend": args.backend, "grid": [args.nx, ny], "l": args.l,
+        print(json.dumps({"backend": args.backend, "prec": args.prec, "grid": [args.nx, ny],
+                          "l": args.l,
                           "bodies": bodies, "device": where,
                           **_profile_row(prof, dt, bodies)}), flush=True)
     return r

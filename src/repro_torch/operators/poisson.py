@@ -27,11 +27,13 @@ def poisson2d(nx: int, ny: int | None = None) -> LinearOperator:
     """Unscaled 5-point stencil 2D Poisson operator on an nx x ny grid.
 
     The matvec runs on whatever device its input lives on; the operator
-    carries the ``stencil2d=(nx, ny)`` hint for the fused kernel tier."""
+    carries the ``stencil2d=(nx, ny)`` hint for the fused kernel tier and
+    its diagonal (4 everywhere, float64 on the CPU) for ``Jacobi``."""
     ny = nx if ny is None else ny
+    n = nx * ny
     return LinearOperator(matvec=lambda u: _stencil2d_apply(u, nx, ny),
-                          n=nx * ny, name=f"poisson2d-{nx}x{ny}",
-                          stencil2d=(nx, ny))
+                          n=n, diag=torch.full((n,), 4.0, dtype=torch.float64),
+                          name=f"poisson2d-{nx}x{ny}", stencil2d=(nx, ny))
 
 
 def poisson_eig_interval(dim: int = 2) -> tuple:

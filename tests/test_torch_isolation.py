@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Solver, solve
+from repro_torch.core import BlockJacobi, Jacobi, Solver, solve
 from repro_torch.core.plcg_scan import plcg_solve
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.launch import solve as launch_solve
@@ -105,7 +105,7 @@ def test_entry_points_default_to_the_card(no_card, entry):
 
 
 @pytest.mark.parametrize("knob, item", [
-    (dict(M=lambda v: v), "A.6"),
+    (dict(M="for_mesh"), "A.9"),
     (dict(precision="bf16"), "A.7"),
     (dict(restart=3), "A.8"),
     (dict(residual_replacement=10), "A.8"),
@@ -116,11 +116,20 @@ def test_entry_points_default_to_the_card(no_card, entry):
 ], ids=["M", "precision", "restart", "residual_replacement", "mesh", "comm", "l_auto",
         "batched_rhs"])
 def test_unported_knobs_raise(knob, item):
+    """``M=`` itself is ported; its mesh-only constructions are not."""
     A, b = _problem()
     if knob.pop("b2d", False):
         b = torch.stack([b, b])
     with pytest.raises(NotImplementedError, match=item):
+        if knob.get("M") == "for_mesh":
+            knob["M"] = BlockJacobi.for_mesh(A, mesh=object())
         solve(A, b, device="cpu", **{"l": 1, **knob})
+
+
+@pytest.mark.parametrize("M", [Jacobi(4.0), BlockJacobi((6, 5))], ids=["jacobi", "blockjacobi"])
+def test_mesh_local_apply_raises(M):
+    with pytest.raises(NotImplementedError, match="A.9"):
+        M.local_apply(object())
 
 
 def test_pallas_backend_points_to_cuda():
